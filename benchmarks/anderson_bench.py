@@ -71,6 +71,9 @@ def main():
     jax.config.update("jax_enable_x64", True)  # the LP family runs f64
     if args.cpu or os.environ.get("JAX_PLATFORMS") == "cpu":
         jax.config.update("jax_platforms", "cpu")
+    from pogs_tpu.utils.compile_cache import use_compile_cache
+
+    use_compile_cache()
 
     import jax.numpy as jnp
 
@@ -83,10 +86,7 @@ def main():
     rows = []
 
     def graph_settings(aa):
-        # use_fused=False: the fused kernels don't carry AA state, so the
-        # comparison must run the same (unfused) loop on both arms.
-        return SolverSettings(use_anderson=aa, anderson_mem=5,
-                              use_fused=False)
+        return SolverSettings(use_anderson=aa, anderson_mem=5)
 
     # Graph-form families (ADMM loop AA).
     p = problems.lasso(500, 300, seed=1)

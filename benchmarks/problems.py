@@ -29,6 +29,18 @@ def lasso(m=500, n=300, density=1.0, condition_number=1.0, seed=42):
     return {"A": A, "b": b, "lambd": lam, "x_true": x_true}
 
 
+def lasso_kkt(A, b, lam, x, zero_tol) -> float:
+    """Lasso KKT violation in float64, relative to λ: |∇ + λ sign(x)| on the
+    support, max(|∇| − λ, 0) off it (∇ = Aᵀ(Ax − b)).  ``A`` may be dense
+    or scipy sparse."""
+    A64 = A.astype(np.float64)
+    x = np.asarray(x, np.float64)
+    grad = A64.T @ (A64 @ x - np.asarray(b, np.float64))
+    viol = np.where(np.abs(x) > zero_tol, np.abs(grad + lam * np.sign(x)),
+                    np.maximum(np.abs(grad) - lam, 0.0))
+    return float(np.max(viol) / lam)
+
+
 def ridge(m=500, n=300, seed=42, lam=0.1):
     rng = np.random.default_rng(seed)
     A = rng.standard_normal((m, n))

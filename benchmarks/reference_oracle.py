@@ -13,7 +13,7 @@ This module builds the upstream reference implementation out-of-source
 
 It exists for two purposes (VERDICT round-1 items 1 and 2):
 
-  1. **Value-parity fuzzing** (``tests/test_reference_parity.py``): the TPU
+  1. **Value-parity fuzzing** (``tests/test_reference_parity.py``): the JAX
      solver and the actual reference binary must agree on objective values
      across randomized graph-form and cone-form problems.
   2. **Same-host head-to-head benchmarking** (``benchmarks/head_to_head.py``):

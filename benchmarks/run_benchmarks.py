@@ -1,9 +1,9 @@
-"""README benchmark suite: the reference's comparison table, TPU-native.
+"""README benchmark suite: the reference's comparison table.
 
 Reproduces the workload of python/benchmarks/run_pogs_comparison.py (the
 generator of the README table: lasso / ridge / logistic / elastic net / svm
-at 500×300, default tolerances) plus cone-form problems, with honest
-remote-TPU timing: dispatch a batch of varied-input solves, sync once.
+at 500×300, default tolerances) plus cone-form problems.  Timing dispatches
+a batch of varied-input solves and syncs once.
 
 Usage:
     python benchmarks/run_benchmarks.py [--sizes] [--cone] [--reps N]
@@ -31,6 +31,8 @@ from pogs_tpu import (  # noqa: E402
     solve_cone_problem,
 )
 from benchmarks import problems  # noqa: E402
+from benchmarks.roofline_bench import peak_gbps  # noqa: E402
+from pogs_tpu.utils.compile_cache import use_compile_cache  # noqa: E402
 
 # Historical reference timings (Apple M1, README.md:26-34) for the 500×300
 # table.  These are a LABELED HISTORY column only — measured same-host
@@ -101,8 +103,7 @@ def bench_graph(name, m=500, n=300, reps=30, seed=42):
 
     # Device-bound throughput: K independent solves (a λ-sweep over g.c)
     # in ONE launch through the vmapped path — device-resident inputs,
-    # (K,) scalar ladder (device-side broadcast), pipelined dispatch
-    # (see bench.py for the transfer-cost analysis).
+    # (K,) scalar ladder (device-side broadcast), pipelined dispatch.
     from pogs_tpu.parallel.batch import batched_graph_solve
 
     K = 64
@@ -166,7 +167,7 @@ def bench_xl(m=30000, n=8000, reps=3, seed=1):
     it = int(res.final_iter)
     ms = min(ts) * 1e3
     gb_per_iter = 2.5 * m * n * 4 / 1e9  # ~2.5 A-passes/iteration
-    peak = 819.0  # v5e HBM GB/s
+    peak = peak_gbps(jax.devices()[0].device_kind)
     return {"problem": "lasso_xl", "m": m, "n": n, "ms": round(ms, 1),
             "iterations": it, "ms_per_iter": round(ms / it, 3),
             "roofline_frac": round(gb_per_iter / (ms / it / 1e3) / peak, 3),
@@ -179,8 +180,7 @@ def bench_cone(name, reps=10, **kw):
     p = gen(**kw)
     kws = dict(P=p.get("P"), abs_tol=1e-4, rel_tol=1e-4, max_iter=20000)
     out = solve_cone_problem(p["c"], p["A"], p["b"], p["dims"], **kws)  # compile
-    # Warm timing with a perturbed b (byte-identical repeats can hit remote
-    # caches; also the honest protocol — see bench.py).
+    # Warm timing with a perturbed b (the protocol of bench.py).
     t0 = time.perf_counter()
     out = solve_cone_problem(p["c"], p["A"], p["b"] * (1 + 1e-5), p["dims"],
                              **kws)
@@ -199,6 +199,7 @@ def main():
                     help="single-chip XL lasso (30000x8000, ~1 GB matrix)")
     ap.add_argument("--reps", type=int, default=30)
     args = ap.parse_args()
+    use_compile_cache()
 
     results = []
     print(f"backend: {jax.devices()[0].platform}\n")

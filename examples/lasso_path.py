@@ -2,7 +2,7 @@
 
 1. Sequential warm-started solves on one GraphFormSolver (the reference's
    pattern: factorization reused, each solve warm-starts from the last).
-2. The TPU-native way: the whole path vmapped into one batched program.
+2. The whole path vmapped into one batched program.
 """
 import time
 import numpy as np

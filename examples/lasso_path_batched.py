@@ -1,10 +1,10 @@
-"""Batched λ-path: the TPU-native alternative to sequential warm starts.
+"""Batched λ-path: the one-program alternative to sequential warm starts.
 
 The reference solves λ-paths one λ at a time with warm starts
 (reference: examples/cpp/lasso_path.cpp:90-106; examples/lasso_path.py
-here reproduces that).  On TPU the better plan is to solve the whole path
-in ONE device program — equilibrate + factor once, vmap the ADMM loop —
-so each iteration is a single batched MXU matmul for every λ at once.
+here reproduces that).  The alternative here solves the whole path in ONE
+device program — equilibrate + factor once, vmap the ADMM loop — so each
+iteration is a single batched matrix product for every λ at once.
 """
 
 import numpy as np

@@ -1,6 +1,6 @@
-"""pogs_tpu — a TPU-native graph-form / cone-form ADMM convex solver.
+"""pogs_tpu — a graph-form / cone-form ADMM convex solver in JAX.
 
-A from-scratch JAX/XLA/Pallas implementation of the capabilities of POGS
+A from-scratch JAX/XLA implementation of the capabilities of POGS
 (Proximal Operator Graph Solver, Fougner & Boyd).  It solves problems in
 *graph form*
 
@@ -15,13 +15,12 @@ via ADMM with closed-form proximal operators, and in *cone form*
 via the same ADMM loop or a homogeneous self-dual embedding (HSDE).
 
 Design: the whole solve is one jit-compiled ``lax.while_loop`` over a pytree
-state — no host round-trips inside the loop.  Dense linear algebra rides the
-MXU; elementwise prox stages are fused by XLA (with Pallas kernels for the
-hottest fusions); multi-chip scaling uses ``jax.sharding`` meshes with
-XLA collectives.
+state — no host round-trips inside the loop.  Dense linear algebra goes to
+the vendor libraries through XLA; elementwise prox stages are fused by XLA;
+multi-device scaling uses ``jax.sharding`` meshes with XLA collectives.
 
-Reference parity: feature surface of /root/reference (foges/pogs); see
-docstrings for file:line citations.
+Reference parity: feature surface of POGS (foges/pogs); see docstrings for
+file:line citations into its sources.
 """
 
 from pogs_tpu.types import (

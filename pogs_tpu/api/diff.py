@@ -5,7 +5,7 @@ differentiable with respect to the data matrix ``A`` and every objective
 parameter (a, b, c, d, e of both ``f`` and ``g``) — enabling gradient-based
 hyper-parameter tuning (λ-selection on a validation loss), bilevel programs,
 and solver-in-the-loop training (OptNet-style convex layers) entirely on
-TPU, composing with ``jit``, ``grad``, and ``vmap``.
+the accelerator, composing with ``jit``, ``grad``, and ``vmap``.
 
 Method: implicit function theorem on a Douglas–Rachford fixed point, NOT
 backprop through the (hundreds of) ADMM iterations.  The graph-form problem
@@ -82,7 +82,7 @@ __all__ = [
 _DIFF_CACHE: dict = {}
 
 #: Dense-Jacobian threshold: below this m+n the (m+n)^2 system is formed
-#: explicitly and solved on the MXU; above it a matrix-free GMRES on the
+#: explicitly and solved directly; above it a matrix-free GMRES on the
 #: transposed Jacobian is used instead.
 _DENSE_MAX_DIM = 2048
 
@@ -174,7 +174,7 @@ def make_diff_solver(
     with traced values to obtain gradients (see :func:`diff_lasso`).
 
     ``linear_solver``: ``'dense'`` forms the (m+n)^2 fixed-point Jacobian
-    explicitly (MXU-friendly; exact), ``'gmres'`` solves matrix-free,
+    explicitly (exact), ``'gmres'`` solves matrix-free,
     ``'auto'`` picks dense for m+n <= {dmax}.
 
     The returned function composes with ``jax.jit``, ``jax.grad`` and
@@ -381,7 +381,7 @@ def diff_qp(P, q, G=None, h=None, A=None, b=None, settings=None, **kw):
     w.r.t. P flow through the (differentiable) Cholesky factor and the
     stacked-matrix rows.  The layer composes with jit/grad/vmap, so a
     batch of QPs is one ``jax.vmap(diff_qp, ...)`` — the convex-layer
-    pattern of OptNet/cvxpylayers, natively on TPU.
+    pattern of OptNet/cvxpylayers, natively on the accelerator.
     """
     P = jnp.asarray(P)
     dt = P.dtype

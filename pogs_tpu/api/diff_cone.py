@@ -7,7 +7,7 @@ the cone problem
 
 making the solution map differentiable w.r.t. ``A``, ``b`` and ``c`` —
 the cvxpylayers capability class (conic convex layers inside a larger
-differentiable program), natively on TPU, composing with ``jit``,
+differentiable program), natively on the accelerator, composing with ``jit``,
 ``grad`` and ``vmap``.  The reference has no autodiff surface at all.
 
 Method (see api/diff.py's module docstring for the derivation): the cone

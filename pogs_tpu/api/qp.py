@@ -179,7 +179,7 @@ def solve_qp(
     takes a factorization-free path — no O(n^3) eigendecomposition, one
     sparse epigraph row per positive entry — so it scales to n ~ 10^5.
     ``G``/``A`` may be dense or scipy
-    sparse (sparse inputs keep the solver's auto-densify policy).
+    sparse (sparse inputs stay sparse, the solvers' default policy).
     Tolerances/limits pass through as keyword arguments
     (``abs_tol``/``rel_tol``/``max_iter``/``dtype``/``qp_via``/...).
     Pass ``solver=`` a previous call's ``result["solver"]`` together

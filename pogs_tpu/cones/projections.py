@@ -1,4 +1,4 @@
-"""Batched Euclidean projections onto cones (TPU-native prox_lib_cone).
+"""Batched Euclidean projections onto cones (counterpart of prox_lib_cone).
 
 Counterpart of src/include/prox_lib_cone.h.  Where the reference walks
 cone constraints one at a time (OpenMP threads on CPU, one CUDA stream per

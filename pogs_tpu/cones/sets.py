@@ -2,8 +2,8 @@
 time, into one batched projection function.
 
 Counterpart of the ConeConstraint machinery in prox_lib_cone.h:31-66 and
-the dispatchers ProxEvalConeCpu/Gpu (:448-468, 633-652).  TPU-native
-design: constraint indices are static numpy, so we group
+the dispatchers ProxEvalConeCpu/Gpu (:448-468, 633-652).  Design:
+constraint indices are static numpy, so we group
 
   * all separable cones (Zero/NonNeg/NonPos) into boolean masks → one
     fused elementwise pass;

@@ -2,14 +2,14 @@
 
 Solves   minimize ‖A x − b‖² + shift ‖x‖²   from a warm start x0.
 
-TPU-native counterpart of src/cpu/include/cgls.h (convergence when
+Counterpart of src/cpu/include/cgls.h (convergence when
 ‖s‖ ≤ tol·‖s₀‖ or tol·‖x‖ ≥ 1, with s = Aᵀr − shift·x, cgls.h:298-305).
 The operator is passed as a pair of closures so dense, sharded, and sparse
 matvecs all reuse the same loop.
 
 Unlike the reference (whose scalar recurrences are always double,
 cgls.h:204 — even for the float instantiation), this loop keeps every
-quantity in the iterate dtype so the matvec stays on the MXU in f32.
+quantity in the iterate dtype so the matvec stays in f32.
 That requires a safeguard the reference does not need: near the f32
 noise floor the CG recurrence loses conjugacy, beta becomes a noise
 ratio, and the iterate random-walks away (measured: a warm-started

@@ -1,6 +1,6 @@
 """Fougner–Boyd matrix equilibration (modified Sinkhorn–Knopp).
 
-TPU-native, fully functional version of the reference pipeline
+Fully functional version of the reference pipeline
 (src/cpu/include/equil_helper.h:140-164 + src/cpu/matrix/matrix_dense.cpp:116-200):
 
   1. B = A ∘ A (elementwise square — 2-norm equilibration).
@@ -11,8 +11,9 @@ TPU-native, fully functional version of the reference pipeline
   4. Normalize: ‖A‖_F / √min(m,n) = 1, folding √normA into both d and e.
 
 The reference mutates A in place with a packed sign-bit trick to save
-memory; on TPU we simply form B = A∘A (HBM is ample for the dense sizes
-this path serves) and let XLA fuse the squaring into the first matvec.
+memory; here we simply form B = A∘A (device memory is ample for the dense
+sizes this path serves) and let XLA fuse the squaring into the first
+matvec.
 """
 
 from __future__ import annotations

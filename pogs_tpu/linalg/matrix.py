@@ -10,11 +10,10 @@ implementations.  The contract the solvers consume:
     frob2()    — ‖A‖_F²           dense()   — materialize (dense only)
 
 Both kinds are registered pytrees so they pass through jit/while_loop
-carries untouched.  Sparse storage is BCOO (coordinate format): the
-TPU-native choice — matvec lowers to gathers + segment-sum, and the
-reference's dual CSR+CSC trick (matrix_sparse.cpp:97-128, kept so both
-A·x and Aᵀ·x stream row-major) is unnecessary since XLA handles both
-directions from one index array.
+carries untouched.  Sparse storage is BCOO (coordinate format): matvec
+lowers to gathers + segment-sum, and XLA handles both A·x and Aᵀ·x from
+one index array, where the reference keeps CSR and CSC side by side
+(matrix_sparse.cpp:97-128).
 """
 
 from __future__ import annotations
@@ -165,3 +164,18 @@ def as_matrix_op(A, dtype=None):
             B = jsparse.BCOO((B.data.astype(dtype), B.indices), shape=B.shape)
         return SparseMatrix(B)
     return DenseMatrix(jnp.asarray(A, dtype))
+
+
+def apply_sparse_policy(A, policy: str):
+    """Solver-constructor ``sparse_policy``: ``"auto"`` keeps a sparse input
+    (scipy sparse / BCOO) sparse; ``"densify"`` materializes it as a dense
+    array.  The dense-versus-sparse crossover by density and size has not
+    been measured, so ``"auto"`` never densifies."""
+    if policy not in ("auto", "densify"):
+        raise ValueError(f"unknown sparse_policy {policy!r}")
+    is_sparse_input = hasattr(A, "tocoo") or (
+        hasattr(A, "todense") and not isinstance(A, np.ndarray)
+    )
+    if policy == "densify" and is_sparse_input:
+        return A.toarray() if hasattr(A, "toarray") else np.asarray(A.todense())
+    return A

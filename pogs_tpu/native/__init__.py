@@ -1,7 +1,7 @@
 """ctypes bindings to the native host runtime (libpogs_tpu_native).
 
 The native library (src/native/, C ABI in src/include/pogs_tpu_native.h) is
-the host-side counterpart of the TPU solve path: a dependency-free C++
+the host-side counterpart of the JAX solve path: a dependency-free C++
 implementation of the same graph-form ADMM algorithm.  It serves
 
   * non-Python callers (the C ABI — parity with the reference's
@@ -9,7 +9,7 @@ implementation of the same graph-form ADMM algorithm.  It serves
     reference's packaged wheel works: pure ctypes, no pybind),
   * latency-critical small problems, where a host solve beats a device
     dispatch, and
-  * cross-checking: an independent numerics oracle for the TPU solver
+  * cross-checking: an independent numerics oracle for the JAX solver
     (see tests/test_native.py).
 
 Use :func:`is_available` to probe, :func:`build` to compile the library

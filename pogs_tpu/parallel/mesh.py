@@ -1,7 +1,7 @@
 """Device meshes and sharding helpers.
 
 The reference is a single-node solver (OpenMP + threaded BLAS + single-GPU
-CUDA, SURVEY.md §2.9) — this module is the TPU-native capability it lacks:
+CUDA, SURVEY.md §2.9) — this module is the capability it lacks:
 scale-out over a ``jax.sharding.Mesh``.
 
 Strategy (SURVEY.md §5.8): shard the *row* blocks of A (and the y-side

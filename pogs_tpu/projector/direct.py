@@ -12,10 +12,10 @@ then each projection is a handful of matvecs.
 hardcodes s = 1 there, projector_direct_dense.cpp:128-135 — we keep general
 s.)
 
-TPU-first choice: the per-iteration solve defaults to multiplication by the
-precomputed *explicit inverse* (G + sI)⁻¹ — a single MXU-friendly gemv —
-instead of two sequential triangular solves, which serialize badly on the
-systolic array.  The equilibrated G has unit-scale spectrum and the +sI
+The per-iteration solve defaults to multiplication by the precomputed
+*explicit inverse* (G + sI)⁻¹ — one matrix-vector product — instead of two
+sequential triangular solves.  The equilibrated G has unit-scale spectrum
+and the +sI
 shift bounds the condition number, so the inverse multiply is numerically
 safe for the solver's 1e-4..1e-6 tolerance regime.  ``method='cholesky'``
 keeps the classic two-triangular-solve path for ill-conditioned inputs.
@@ -36,11 +36,10 @@ def _as_dense(A):
 
 
 # Above this element count the Gram matrix is accumulated over row blocks.
-# Precision.HIGHEST on TPU splits each f32 matmul operand into 3 bf16
-# passes; on a full 40000x10000 operand those splits (plus the transposed
-# layout copy) transiently cost several extra copies of A and blow HBM —
-# the round-2 XL OOM.  Blocking caps the transient at one block's worth
-# while keeping every step MXU-shaped; init-only cost, no loop impact.
+# One product over a full 40000x10000 operand (plus its transposed layout
+# copy) transiently costs several extra copies of A in device memory;
+# blocking caps the transient at one block's worth.  Init-only cost, no
+# loop impact.
 _GRAM_BLOCK_ELEMS = 2 * 10**8
 _GRAM_BLOCK_ROWS = 4096
 # Explicit-inverse construction: above this Gram dimension the identity RHS
@@ -50,7 +49,7 @@ _INV_BLOCK_COLS = 2048
 
 
 def _gram(A, trans: bool):
-    """AᵀA (trans) or AAᵀ, at highest MXU precision; blocked when big."""
+    """AᵀA (trans) or AAᵀ, at highest precision; blocked when big."""
     m, n = A.shape
     if m * n < _GRAM_BLOCK_ELEMS:
         if trans:
@@ -100,10 +99,9 @@ class DirectProjector:
             else:
                 # XLA's blocked triangular_solve against a full k x k RHS
                 # materializes O(k/128) dynamic-update-slice temps of ~k^2
-                # bytes each — at k = 10000 that alone exceeded the 16 GB
-                # HBM (the round-4 XL OOM).  Solving K^-1 column-panel by
-                # column-panel caps the transient at one panel; init-only
-                # cost, identical loop body.
+                # bytes each — at k = 10000 tens of GB.  Solving K^-1
+                # column-panel by column-panel caps the transient at one
+                # panel; init-only cost, identical loop body.
                 panels = []
                 for lo in range(0, k, _INV_BLOCK_COLS):
                     hi = min(lo + _INV_BLOCK_COLS, k)

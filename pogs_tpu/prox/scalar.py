@@ -1,4 +1,4 @@
-"""The 16-function proximal-operator library, vectorized for the TPU VPU.
+"""The 16-function proximal-operator library, vectorized elementwise.
 
 Each entry h in the library defines f(x) = c*h(a*x - b) + d*x + (e/2) x^2 and
 three evaluations (parity with src/include/prox_lib.h):
@@ -12,7 +12,7 @@ three evaluations (parity with src/include/prox_lib.h):
                               at x (prox_lib.h:361-465).
 
 All functions are elementwise jnp expressions (branch-free via jnp.where)
-so they fuse into single VPU passes under XLA.
+so they fuse into single elementwise kernels under XLA.
 """
 
 from __future__ import annotations
@@ -83,7 +83,7 @@ def prox_logistic(v, rho, newton_iters: int = 5, bisect_iters: int = 30):
     Bracketed on [v - 1/rho, v] (the root always lies there since
     0 < sigma < 1).  Warm Newton steps with bracket safeguarding, then
     fixed-count bisection, then two Newton polish steps — all fixed
-    iteration counts so the whole thing is one unrolled VPU expression.
+    iteration counts so the whole thing is one unrolled elementwise expression.
     """
     l = v - 1.0 / rho
     u = v

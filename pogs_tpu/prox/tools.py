@@ -1,8 +1,8 @@
 """Vectorized special-function kernels used by the prox library.
 
-TPU-native analogues of src/include/prox_tools.h (LambertWExp, CubicSolve).
+Analogues of src/include/prox_tools.h (LambertWExp, CubicSolve).
 Both are branch-free jnp implementations (fixed iteration counts, masked
-selects) so they vectorize on the VPU and trace cleanly under jit/vmap.
+selects) so they vectorize and trace cleanly under jit/vmap.
 """
 
 from __future__ import annotations

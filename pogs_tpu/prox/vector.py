@@ -1,10 +1,10 @@
 """Vector prox / function evaluation with compile-time dispatch on h.
 
-The TPU-native replacement for the reference's elementwise switch over
+The vectorized replacement for the reference's elementwise switch over
 FunctionObj records (prox_lib.h:206-230, 325-349, 503-546).  Because the
 ``h`` codes of a :class:`~pogs_tpu.types.FunctionVector` are static numpy
 data, we specialize at trace time: only the function types actually present
-in the problem are emitted, each as one full-width VPU pass combined with a
+in the problem are emitted, each as one full-width elementwise pass with a
 constant boolean mask.  A single-type objective (the common case — lasso,
 ridge, logistic, ...) compiles to exactly one fused elementwise stage with
 no dispatch at all.

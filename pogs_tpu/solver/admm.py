@@ -1,6 +1,6 @@
 """Graph-form ADMM core loop — one jitted ``lax.while_loop``, zero host syncs.
 
-TPU-native re-design of PogsImplementation::Solve (src/cpu/pogs.cpp:90-581).
+Re-design of PogsImplementation::Solve (src/cpu/pogs.cpp:90-581).
 The reference runs a host-driven loop (every norm syncs device→host on the
 GPU build, §3.4 of SURVEY.md); here the *entire* solve — prox, projection,
 residuals, adaptive ρ, convergence test — is a single compiled while_loop
@@ -58,8 +58,7 @@ K_RHO_MIN_F32 = 1e-2
 K_RHO_MAX_F32 = 1e2
 K_KAPPA = 0.9
 # Spectral-update schedule, normal (non-exact-tol) mode (pogs.cpp:401-438).
-# The exact-tol mode uses (10, 0.5, 2.0, 5.0) — see the body below.  The
-# fused kernels (ops/fused_admm*.py) import THESE names; keep in sync.
+# The exact-tol mode uses (10, 0.5, 2.0, 5.0) — see the body below.
 K_SPEC_FREQ = 50
 K_SPEC_CHANGE_MIN = 0.67
 K_SPEC_CHANGE_MAX = 1.5

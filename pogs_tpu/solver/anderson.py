@@ -85,8 +85,7 @@ def anderson_step(
         jnp.eye(mem, dtype=dt),
     )
     rhs = (dF_m @ f) * valid
-    # G_mat is SPD (Gram + reg); Cholesky-based solve — LU does not lower
-    # reliably on TPU (especially f64).
+    # G_mat is SPD (Gram + reg): Cholesky-based solve.
     L = jnp.linalg.cholesky(G_mat)
     theta = jax.scipy.linalg.cho_solve((L, True), rhs) * valid
 

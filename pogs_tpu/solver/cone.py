@@ -30,7 +30,7 @@ from pogs_tpu.types import (
 )
 from pogs_tpu.cones.sets import ConeSet
 from pogs_tpu.linalg.equil import equilibrate
-from pogs_tpu.linalg.matrix import as_matrix_op
+from pogs_tpu.linalg.matrix import apply_sparse_policy, as_matrix_op
 from pogs_tpu.linalg.norm import norm2_est
 from pogs_tpu.projector.direct import DirectProjector
 from pogs_tpu.projector.indirect import CglsProjector
@@ -81,23 +81,7 @@ class ConeSolver:
         if dtype is None:
             in_dtype = getattr(A, "dtype", None) or jnp.float32
             dtype = jnp.result_type(in_dtype, jnp.float32)
-        if sparse_policy not in ("auto", "keep", "densify"):
-            raise ValueError(f"unknown sparse_policy {sparse_policy!r}")
-        # Same auto-densify policy as GraphFormSolver (graph.py): TPUs
-        # have no useful gather hardware, so below ~99.5% sparsity a
-        # dense MXU matvec beats every sparse path by 20x+; 'auto'
-        # densifies TPU-resident sparse inputs that fit the budget.
-        is_sparse_input = hasattr(A, "tocoo") or (
-            hasattr(A, "todense") and not isinstance(A, np.ndarray)
-        )
-        if is_sparse_input and sparse_policy != "keep":
-            m_, n_ = A.shape
-            size_ok = (m_ * n_ * jnp.dtype(dtype).itemsize
-                       <= (1 << 30))
-            on_tpu = jax.default_backend() == "tpu"
-            if sparse_policy == "densify" or (size_ok and on_tpu):
-                A = (A.toarray() if hasattr(A, "toarray")
-                     else np.asarray(A.todense()))
+        A = apply_sparse_policy(A, sparse_policy)
         self._A_raw = A
         Aop = as_matrix_op(A, dtype)
         self.m, self.n = Aop.shape
@@ -569,7 +553,7 @@ class ConeSolver:
 
         x-prox: (P_s + ρI)⁻¹(ρv − c_s) through a one-time eigh of the
         equilibrated P_s = E·P·E, so the adaptive-ρ shift is a diagonal
-        divide between two MXU matmuls (no refactorization — contrast
+        divide between two matrix products (no refactorization — contrast
         the reference's per-ρ-change Cholesky refactor, pogs.cpp:694-703).
         y-prox: cone projection of b_s − y (pogs.cpp:714-721).  Much
         cheaper per iteration than the epigraph-SOC HSDE route (no
@@ -754,40 +738,16 @@ class ConeSolver:
                     s_den = 1.0 + jnp.vdot(c_s, t_x) + jnp.vdot(b_s, t_y)
                     smw_factor = {"apply": apply_kinv, "t_x": t_x, "t_y": t_y,
                                   "s_den": s_den}
-                from pogs_tpu.ops.fused_hsde import (
-                    fused_hsde_eligible, fused_hsde_solve,
+                out = hsde_solve(
+                    A, b_s, c_s, Ky, P=P_s, strategy=strategy,
+                    abs_tol=settings.abs_tol, rel_tol=settings.rel_tol,
+                    max_iter=settings.max_iter, smw_factor=smw_factor,
+                    use_anderson=settings.use_anderson,
+                    anderson_mem=settings.anderson_mem,
+                    anderson_start=settings.anderson_start,
+                    u0=u0 if has_warm else None,
+                    polish=settings.polish,
                 )
-
-                use_fused = (
-                    smw_factor is not None
-                    and settings.use_fused is not False
-                    and fused_hsde_eligible(
-                        m, n, dt, Ky, has_P, settings.use_anderson
-                    )
-                    and (settings.use_fused
-                         or (jax.default_backend() == "tpu"
-                             and dt == jnp.float32))
-                )
-                if use_fused:
-                    out = fused_hsde_solve(
-                        A, b_s, c_s, Ky, init_state["factor"]["op"],
-                        smw_factor["t_x"], smw_factor["t_y"],
-                        smw_factor["s_den"],
-                        settings.abs_tol, settings.rel_tol,
-                        settings.max_iter,
-                        u0=u0 if has_warm else None,
-                    )
-                else:
-                    out = hsde_solve(
-                        A, b_s, c_s, Ky, P=P_s, strategy=strategy,
-                        abs_tol=settings.abs_tol, rel_tol=settings.rel_tol,
-                        max_iter=settings.max_iter, smw_factor=smw_factor,
-                        use_anderson=settings.use_anderson,
-                        anderson_mem=settings.anderson_mem,
-                        anderson_start=settings.anderson_start,
-                        u0=u0 if has_warm else None,
-                        polish=settings.polish,
-                    )
                 w = out["w"]
                 tau = w[n + m]
                 tau_ok = tau > 1e-8

@@ -33,12 +33,11 @@ from pogs_tpu.types import (
 )
 from pogs_tpu.prox.vector import prox_eval, func_eval, scale_f, scale_g
 from pogs_tpu.linalg.equil import equilibrate
-from pogs_tpu.linalg.matrix import as_matrix_op
+from pogs_tpu.linalg.matrix import apply_sparse_policy, as_matrix_op
 from pogs_tpu.linalg.norm import norm2_est
 from pogs_tpu.projector.direct import DirectProjector
 from pogs_tpu.projector.indirect import CglsProjector
 from pogs_tpu.solver.admm import admm_loop, postsolve_verify
-from pogs_tpu.ops.fused_admm import fused_admm_eligible, fused_admm_loop
 from pogs_tpu.utils.precision import highest_precision
 
 _INIT_CACHE: dict = {}
@@ -79,40 +78,12 @@ def _fv(h: np.ndarray, params) -> FunctionVector:
     return fv
 
 
-def _use_fused(shape, dtype, settings: SolverSettings, kind: str,
-               direct_method: str, is_sparse: bool) -> bool:
-    """Decide the VMEM-resident fused-kernel path (static per compile)."""
-    if settings.use_fused is False:
-        return False
-    supported = (
-        not is_sparse
-        and kind == "direct"
-        and direct_method == "inverse"
-        and fused_admm_eligible(shape[0], shape[1], dtype, settings)
-    )
-    if settings.use_fused:
-        if not supported:
-            raise ValueError(
-                "use_fused=True but the fused path does not support this "
-                "problem (needs dense A, direct/inverse projector, VMEM-"
-                "sized shapes, no anderson/exact-tol/verbose>1)"
-            )
-        return True
-    # Auto: only where it pays — a real TPU backend, f32 iterates.
-    return (
-        supported
-        and jax.default_backend() == "tpu"
-        and jnp.dtype(dtype) == jnp.float32
-    )
-
-
 def _get_solve_fn(shape, dtype, h_f: np.ndarray, h_g: np.ndarray,
                   settings: SolverSettings, kind, direct_method,
-                  has_warm: bool, has_x0: bool, has_nu0: bool,
-                  fused: bool = False):
+                  has_warm: bool, has_x0: bool, has_nu0: bool):
     key = (
         shape, str(dtype), h_f.tobytes(), h_g.tobytes(), settings,
-        kind, direct_method, has_warm, has_x0, has_nu0, fused,
+        kind, direct_method, has_warm, has_x0, has_nu0,
     )
     fn = _SOLVE_CACHE.get(key)
     if fn is not None:
@@ -121,10 +92,9 @@ def _get_solve_fn(shape, dtype, h_f: np.ndarray, h_g: np.ndarray,
     projector = _make_projector(kind, direct_method, settings.cgls_max_iter)
     m, n = shape
 
-    # NOTE: every per-call array (zeros, scalar rho, warm state) is created
-    # or converted *inside* this one jit program.  On remote/tunneled
-    # accelerators each eager host-side op costs a full round trip, so the
-    # solve path performs exactly one dispatch per solve.
+    # Every per-call array (zeros, scalar rho, warm state) is created or
+    # converted *inside* this one jit program, so a solve is exactly one
+    # dispatch: no eager device op runs on the host's side of it.
     def solve(init_state, f_params, g_params, rho0, opt):
         A = init_state["A"]
         d = init_state["d"]
@@ -167,17 +137,10 @@ def _get_solve_fn(shape, dtype, h_f: np.ndarray, h_g: np.ndarray,
         def project_fn(px, py, tol, x_warm):
             return projector.project(A, factor, px, py, tol, x_warm)
 
-        if fused:
-            A_dense = A.dense() if hasattr(A, "dense") else A
-            out = fused_admm_loop(
-                A_dense, factor["op"], norm_A, h_f, tuple(f_s.params),
-                h_g, tuple(g_s.params), settings, z0, zt0, rho0,
-            )
-        else:
-            out = admm_loop(
-                A, norm_A, d, e, prox_fn, eval_fn, project_fn, settings,
-                z0, zt0, rho0,
-            )
+        out = admm_loop(
+            A, norm_A, d, e, prox_fn, eval_fn, project_fn, settings,
+            z0, zt0, rho0,
+        )
 
         if settings.use_exact_tol:
             out["status"] = postsolve_verify(
@@ -205,9 +168,6 @@ class GraphFormSolver:
     a warm start (exactly the reference's λ-path pattern).
     """
 
-    # Auto-densify budget for sparse inputs on TPU (bytes of the dense A).
-    _DENSIFY_BYTES = 1 << 30
-
     def __init__(
         self,
         A,
@@ -220,22 +180,7 @@ class GraphFormSolver:
         if dtype is None:
             in_dtype = getattr(A, "dtype", None) or jnp.float32
             dtype = jnp.result_type(in_dtype, jnp.float32)
-        if sparse_policy not in ("auto", "keep", "densify"):
-            raise ValueError(f"unknown sparse_policy {sparse_policy!r}")
-        # TPUs have no useful gather hardware: below ~99.5% sparsity a dense
-        # MXU matvec beats every sparse path by 20x+ (measured — see
-        # docs/developer/performance.md).  'auto' densifies TPU-resident
-        # sparse inputs that fit the budget; 'keep' preserves BCOO (for
-        # matrices that only fit HBM in sparse form).
-        is_sparse_input = hasattr(A, "tocoo") or (
-            hasattr(A, "todense") and not isinstance(A, np.ndarray)
-        )
-        if is_sparse_input and sparse_policy != "keep":
-            m_, n_ = A.shape
-            size_ok = m_ * n_ * jnp.dtype(dtype).itemsize <= self._DENSIFY_BYTES
-            on_tpu = jax.default_backend() == "tpu"
-            if sparse_policy == "densify" or (size_ok and on_tpu):
-                A = A.toarray() if hasattr(A, "toarray") else np.asarray(A.todense())
+        A = apply_sparse_policy(A, sparse_policy)
         self.A = as_matrix_op(A, dtype)
         self.m, self.n = self.A.shape
         self.dtype = self.A.dtype
@@ -318,15 +263,10 @@ class GraphFormSolver:
         has_warm = self._z is not None
         rho0 = float(rho if rho is not None else self.rho)
 
-        fused = _use_fused(
-            (self.m, self.n), self.dtype, settings, self.projector,
-            self.direct_method, self.A.is_sparse,
-        )
         fn = _get_solve_fn(
             (self.m, self.n), self.dtype, f.h, g.h, settings,
             self.projector, self.direct_method,
             has_warm, x_init is not None, nu_init is not None,
-            fused=fused,
         )
 
         opt = {}
@@ -342,10 +282,9 @@ class GraphFormSolver:
             # Banner (reference pogs.cpp:186-196).
             print(
                 "---------------------------------------------------------\n"
-                " pogs_tpu — TPU-native graph-form ADMM\n"
+                " pogs_tpu — graph-form ADMM\n"
                 f"   A: {self.m} x {self.n} ({'sparse' if self.A.is_sparse else 'dense'}, "
-                f"{self.dtype}), projector: {self.projector}"
-                f"{' [fused kernel]' if fused else ''}\n"
+                f"{self.dtype}), projector: {self.projector}\n"
                 f"   abs_tol {settings.abs_tol:g}, rel_tol {settings.rel_tol:g}, "
                 f"rho {rho0:g}, max_iter {settings.max_iter}\n"
                 "---------------------------------------------------------"

@@ -1,6 +1,6 @@
 """Homogeneous self-dual embedding (HSDE) cone solver.
 
-TPU-native redesign of SolveHsdeCone (src/cpu/pogs.cpp:1413-1888).  Solves
+Redesign of SolveHsdeCone (src/cpu/pogs.cpp:1413-1888).  Solves
 
     minimize    c'x (+ 1/2 x'Px)
     subject to  b − A x ∈ K_y,   x free
@@ -36,7 +36,7 @@ Linear-solver strategies for (I + Q) w = u (all factor ONCE — Q is fixed):
                 static regularization and iterative refinement
                 (pogs.cpp:1527-1614), for embeddings small enough to
                 factor (reference kDirectLimit: dim ≤ 2000).  Cholesky-
-                based because f64 LU/inv does not lower on TPU.  This
+                based (the regularized system is SPD).  This
                 strategy packs/unpacks inside the loop — irrelevant at
                 the sizes it is selected for (never sharded).
                 ('inverse' is accepted as an alias.)
@@ -80,12 +80,11 @@ K_POLISH_EVERY = 250
 K_POLISH_IPM_STEPS = 10
 K_POLISH_MAX_N = 2048   # Cholesky variant: the IPM normal matrix is n x n
 K_POLISH_MAX_M = 16384  # keep per-step A'DA matmuls bounded
-# XL Cholesky variant (round-4, VERDICT item 5): between the standard
-# caps and these, the SAME dense-normal-equations burst runs on a sparser
-# cadence with fewer steps — each step is one m x n^2 matmul + one n^3/3
-# Cholesky, which rides the MXU on TPU and is affordable once-in-a-while
-# on a CPU host.  This is what lifts the tail finisher to 10^4-10^5-row
-# LPs (e.g. 20000 x 5000).
+# XL Cholesky variant (round 4): between the standard caps and these, the
+# SAME dense-normal-equations burst runs on a sparser cadence with fewer
+# steps — each step is one m x n^2 matmul + one n^3/3 Cholesky, affordable
+# once in a while on the device or a CPU host.  This is what lifts the tail
+# finisher to 10^4-10^5-row LPs (e.g. 20000 x 5000).
 K_POLISH_XL_MAX_N = 8192
 K_POLISH_XL_MAX_M = 120_000
 K_POLISH_XL_EVERY = 1000
@@ -458,8 +457,8 @@ def hsde_solve(
         # Direct normal-equations solve for (I+Q)w = u: Cholesky of
         # G = MᵀM + δI with static regularization and two iterative-
         # refinement steps against the unregularized system
-        # (pogs.cpp:1527-1614; Cholesky-based — f64 LU/inv does not lower
-        # on TPU).  Packs/unpacks at the lin_solve boundary — fine at the
+        # (pogs.cpp:1527-1614; Cholesky-based, the system is SPD).
+        # Packs/unpacks at the lin_solve boundary — fine at the
         # dim ≤ 2000 sizes this strategy is selected for.
         M = dense_q(A, b, c, P)
         delta = jnp.asarray(

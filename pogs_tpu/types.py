@@ -6,7 +6,7 @@ Parity notes (citations into /root/reference):
     src/interface_c/pogs_c.h:51-69).
   - ``FunctionObj`` encodes c*h(a*x - b) + d*x + (e/2)*x^2 with the convexity
     clamps c,e >= 0 (src/include/prox_lib.h:40-70).
-  - ``FunctionVector`` is the TPU-native struct-of-arrays form: the ``h``
+  - ``FunctionVector`` is the struct-of-arrays form: the ``h``
     codes are *static* (numpy, known at trace time) so prox dispatch
     specializes at compile time to only the function types present; the
     numeric parameters a,b,c,d,e are traced jnp arrays (so they can be
@@ -117,8 +117,7 @@ class FunctionVector:
     prox specialization); a,b,c,d,e are parameter *data* — kept as host
     numpy arrays (or passed-through jax arrays) and handed to the jitted
     solve as arguments.  Host-side storage is deliberate: no eager device
-    ops happen at construction, which matters on remote/tunneled
-    accelerators where every eager dispatch costs a round trip.
+    ops happen at construction, so building a problem dispatches nothing.
     Scalar parameters broadcast to the full length.
     """
 
@@ -281,11 +280,6 @@ class SolverSettings:
     anderson_start: int = 10
     # Indirect (CGLS) projector controls.
     cgls_max_iter: int = 500
-    # VMEM-resident fused Pallas solve (pogs_tpu/ops/fused_admm.py):
-    # None = auto (on for TPU backends when the problem fits on-chip and
-    # the mode is supported), True = force (interpret mode off-TPU),
-    # False = always use the XLA while_loop path.
-    use_fused: Optional[bool] = None
     # Active-set polish for LP-shaped HSDE cone solves (solver/hsde.py):
     # periodic masked-Cholesky projection onto the guessed active face,
     # adopted only if it passes the full convergence test.  Cuts tight-

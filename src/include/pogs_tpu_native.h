@@ -14,10 +14,10 @@
  *     exposing the warm-start / lambda-path capability the reference only
  *     offers through its C++ API (reference: examples/cpp/lasso_path.cpp).
  *
- * Role in the framework: the TPU compute path is JAX/XLA (pogs_tpu Python
+ * Role in the framework: the accelerator path is JAX/XLA (pogs_tpu Python
  * package); this library is the host-side runtime for (a) callers outside
  * Python, (b) small problems where device dispatch dominates, and (c) an
- * independent numerics oracle for the TPU path.
+ * independent numerics oracle for the JAX path.
  *
  * Function codes, cone codes and statuses use the same integer values as
  * pogs_tpu.types (which match the reference enums for ABI familiarity).

@@ -1,6 +1,6 @@
 // Graph-form ADMM — native host runtime.
 //
-// Semantics match the TPU solve loop (pogs_tpu/solver/admm.py) so the two
+// Semantics match the JAX solve loop (pogs_tpu/solver/admm.py) so the two
 // runtimes are cross-checkable oracles of each other; both encode the
 // reference algorithm (reference: src/cpu/pogs.cpp:90-581, constants
 // :94-110): over-relaxation alpha = 1.7, approximate-then-exact residuals,
@@ -8,7 +8,7 @@
 // equilibration, residual-tied projection tolerance, implicit warm start.
 //
 // The host runtime always iterates in double (the host has fast f64; the
-// f32-vs-f64 split is a TPU concern), so the reference's [1e-4, 1e4] rho
+// f32-vs-f64 split is an accelerator concern), so the reference's [1e-4, 1e4] rho
 // bounds apply directly.
 #pragma once
 

@@ -819,7 +819,7 @@ extern "C" int32_t pogs_native_solve_dense_s(
     const float* g_c, const float* g_d, const float* g_e,
     float* x, float* y, float* mu, float* nu, PogsNativeInfo* info) {
   // Single precision promotes to the double core (the host runtime always
-  // iterates in f64; f32 is a TPU-side concern).
+  // iterates in f64; f32 is an accelerator-side concern).
   std::vector<double> Ad(A, A + m * n);
   auto up = [](const float* p, size_t len) {
     std::vector<double> v;

@@ -1,10 +1,10 @@
 // Minimal dense linear algebra for the native host runtime.
 //
-// The TPU compute path of pogs_tpu is JAX/XLA; this native library is the
+// The accelerator path of pogs_tpu is JAX/XLA; this native library is the
 // host-side runtime used by the C ABI (src/include/pogs_tpu_native.h) as a
 // dependency-free CPU execution engine: small problems solve faster on the
 // host than a device dispatch costs, and it doubles as a numerics oracle
-// for the TPU path.  Functional counterpart of the reference's GSL/CBLAS
+// for the JAX path.  Functional counterpart of the reference's GSL/CBLAS
 // shims (reference: src/cpu/include/gsl/gsl_blas.h:95-234,
 // gsl_linalg.h:14-60) but written as free functions over std::vector /
 // raw spans with OpenMP-parallel loops — no BLAS dependency.

@@ -1,6 +1,6 @@
 // The 16-function proximal-operator library — native host version.
 //
-// Same function catalogue and parameter encoding as the Python/TPU library
+// Same function catalogue and parameter encoding as the Python/JAX library
 // (pogs_tpu/prox/scalar.py, pogs_tpu/prox/vector.py), which mirrors the
 // reference semantics c*h(a*x - b) + d*x + (e/2)x^2 (reference:
 // src/include/prox_lib.h:23-70, generic transform :206-230).  Scalar math

@@ -3,7 +3,7 @@
 // Oracles are analytic solutions, mirroring the reference's integration
 // tests (reference: tests/test_solver.cpp:43-173 uses identity-block lasso
 // with closed-form soft-threshold answers).  Deeper cross-checks against
-// the TPU solver live in tests/test_native.py.
+// the JAX solver live in tests/test_native.py.
 
 #include <algorithm>
 #include <cmath>

@@ -356,3 +356,165 @@ def test_qp_with_soc_constraint_vs_slsqp():
         options={"maxiter": 1000, "ftol": 1e-14})
     assert out["status"] == 0
     assert out["optval"] == pytest.approx(float(ref.fun), rel=1e-5, abs=1e-5)
+
+
+def _slsqp_min(c, cons, x0):
+    """Independent oracle for small smooth conic programs: SLSQP on
+    min c'x subject to scalar inequality functions g(x) >= 0."""
+    from scipy.optimize import minimize
+
+    res = minimize(lambda x: c @ x, x0, jac=lambda x: c, method="SLSQP",
+                   constraints=[{"type": "ineq", "fun": g} for g in cons],
+                   options={"ftol": 1e-12, "maxiter": 500})
+    assert res.success, res.message
+    return res.x
+
+
+def _hsde_instance(name):
+    """(A, b, c, Ky, check) for one f32 HSDE instance; ``check(status, x)``
+    compares with HiGHS, SLSQP or a closed form."""
+    rng = np.random.default_rng(5)
+    if name == "lp_equality":
+        # min x1 + 2 x2 s.t. x1 + x2 = 1, x >= 0  ->  x* = (1, 0).
+        A = np.array([[1.0, 1.0], [-1.0, 0.0], [0.0, -1.0]])
+        b = np.array([1.0, 0.0, 0.0])
+        c = np.array([1.0, 2.0])
+        Ky = [ConeConstraint(Cone.ZERO, [0]),
+              ConeConstraint(Cone.NON_NEG, [1, 2])]
+        ref = linprog(c, A_eq=A[:1], b_eq=b[:1], bounds=(0, None),
+                      method="highs")
+
+        def check(status, x):
+            assert status == Status.SUCCESS
+            np.testing.assert_allclose(x, ref.x, atol=1e-3)
+        return A, b, c, Ky, check
+    if name == "soc_ball":
+        # min c'x s.t. ||x - x0|| <= 1.5  ->  x* = x0 - 1.5 c/||c||.
+        n = 9
+        x0 = rng.standard_normal(n)
+        c = rng.standard_normal(n)
+        A = np.vstack([np.zeros((1, n)), -np.eye(n)])
+        b = np.concatenate([[1.5], -x0])
+        Ky = [ConeConstraint(Cone.SOC, range(n + 1))]
+
+        def check(status, x):
+            assert status == Status.SUCCESS
+            np.testing.assert_allclose(
+                x, x0 - 1.5 * c / np.linalg.norm(c), atol=2e-3)
+        return A, b, c, Ky, check
+    if name == "equality_wide":
+        # m < n equality rows with c in the row space of A: the objective
+        # is constant on the feasible set, c'x = w'b for c = A'w.
+        A = rng.standard_normal((3, 8))
+        b = A @ rng.standard_normal(8)
+        w = rng.standard_normal(3)
+        c = A.T @ w
+        Ky = [ConeConstraint(Cone.ZERO, range(3))]
+
+        def check(status, x):
+            assert status == Status.SUCCESS
+            np.testing.assert_allclose(A @ x, b, atol=1e-3)
+            assert float(c @ x) == pytest.approx(float(w @ b), abs=2e-3)
+        return A, b, c, Ky, check
+    if name == "infeasible":
+        # x >= 1 and x <= 0.
+        A = np.array([[-1.0], [1.0]])
+        b = np.array([-1.0, 0.0])
+        c = np.array([1.0])
+        Ky = [ConeConstraint(Cone.NON_NEG, [0, 1])]
+
+        def check(status, x):
+            assert status == Status.INFEASIBLE
+        return A, b, c, Ky, check
+    if name == "unbounded":
+        # min -x s.t. x >= 0.
+        A = np.array([[-1.0]])
+        b = np.array([0.0])
+        c = np.array([-1.0])
+        Ky = [ConeConstraint(Cone.NON_NEG, [0])]
+
+        def check(status, x):
+            assert status == Status.UNBOUNDED
+        return A, b, c, Ky, check
+    if name == "soc_segments":
+        # 8 second-order-cone segments b_k - F_k x in SOC: constant heads
+        # (bounded feasible set) large enough that x = 0 is strictly
+        # feasible.
+        nseg, L, n = 8, 8, 30
+        F = rng.standard_normal((nseg * L, n)) * 0.3
+        F[::L] = 0.0
+        c = rng.standard_normal(n)
+        b = np.abs(rng.standard_normal(nseg * L)) + 0.5
+        for k in range(nseg):
+            b[k * L] = np.linalg.norm(b[k * L + 1:(k + 1) * L]) + 2.0
+        Ky = [ConeConstraint(Cone.SOC, range(k * L, (k + 1) * L))
+              for k in range(nseg)]
+
+        def seg(k):  # s0 >= 0 and s0^2 - |s_rest|^2 >= 0: smooth
+            def g(x):
+                s = b[k * L:(k + 1) * L] - F[k * L:(k + 1) * L] @ x
+                return np.array([s[0], s[0] ** 2 - s[1:] @ s[1:]])
+            return g
+        ref = _slsqp_min(c, [seg(k) for k in range(nseg)], np.zeros(n))
+
+        def check(status, x):
+            assert status == Status.SUCCESS
+            assert float(c @ x) == pytest.approx(float(c @ ref), rel=1e-3,
+                                                 abs=1e-3)
+        return F, b, c, Ky, check
+    if name == "exp_cone":
+        # maximize r s.t. (r, 1, e) in K_exp  ->  r* = 1.
+        A = np.array([[-1.0], [0.0], [0.0]])
+        b = np.array([0.0, 1.0, float(np.e)])
+        c = np.array([-1.0])
+        Ky = [ConeConstraint(Cone.EXP_PRIMAL, [0, 1, 2])]
+
+        def check(status, x):
+            assert status == Status.SUCCESS
+            assert float(x[0]) == pytest.approx(1.0, abs=5e-3)
+        return A, b, c, Ky, check
+    assert name == "mixed_exp_soc_nonneg"
+    # ||x - x0|| <= 2 (SOC), x[0] <= 1 (exp-cone row (x0, 1, e)),
+    # A_nn x <= b_nn (nonneg rows).
+    n = 4
+    x0 = rng.standard_normal(n)
+    c = rng.standard_normal(n)
+    A_exp = np.zeros((3, n))
+    A_exp[0, 0] = -1.0
+    A_nn = rng.standard_normal((2, n))
+    b_nn = A_nn @ x0 + 2.0
+    A = np.vstack([np.zeros((1, n)), -np.eye(n), A_exp, A_nn])
+    b = np.concatenate([[2.0], -x0, [0.0, 1.0, float(np.e)], b_nn])
+    Ky = [ConeConstraint(Cone.SOC, range(n + 1)),
+          ConeConstraint(Cone.EXP_PRIMAL, [n + 1, n + 2, n + 3]),
+          ConeConstraint(Cone.NON_NEG, [n + 4, n + 5])]
+    ref = _slsqp_min(c, [lambda x: 4.0 - (x - x0) @ (x - x0),
+                         lambda x: 1.0 - x[0],
+                         lambda x: b_nn - A_nn @ x], x0)
+
+    def check(status, x):
+        assert status == Status.SUCCESS
+        assert float(c @ x) == pytest.approx(float(c @ ref), rel=2e-3,
+                                             abs=2e-3)
+    return A, b, c, Ky, check
+
+
+@pytest.mark.parametrize("name", [
+    "lp_equality", "soc_ball", "equality_wide", "infeasible", "unbounded",
+    "soc_segments", "exp_cone", "mixed_exp_soc_nonneg",
+])
+def test_hsde_instances_f32(name):
+    """The XLA HSDE loop in float32 on small instances, each checked
+    against HiGHS, SLSQP or a closed form."""
+    from pogs_tpu.cones.sets import ConeSet
+    from pogs_tpu.solver.hsde import hsde_solve
+
+    A, b, c, Ky, check = _hsde_instance(name)
+    out = hsde_solve(jnp.asarray(A, jnp.float32), jnp.asarray(b, jnp.float32),
+                     jnp.asarray(c, jnp.float32), ConeSet(Ky, A.shape[0]),
+                     strategy="smw", abs_tol=1e-6, rel_tol=1e-6,
+                     max_iter=20000)
+    w = np.asarray(out["w"], np.float64)
+    n = A.shape[1]
+    x = w[:n] / w[-1] if w[-1] > 1e-8 else w[:n]
+    check(Status(int(out["status"])), x)

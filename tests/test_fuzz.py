@@ -138,7 +138,7 @@ def test_random_sparse_three_way(native, seed):
     g = FunctionVector(Function.ABS, n, c=0.15)
     kws = dict(abs_tol=1e-6, rel_tol=1e-6, max_iter=20000)
 
-    sparse_solver = GraphFormSolver(A, sparse_policy="keep", dtype="float64")
+    sparse_solver = GraphFormSolver(A, dtype="float64")
     out_sp = sparse_solver.solve(
         f, g, settings=sparse_solver.settings.replace(**kws))
     out_dn = solve_graph_form(np.asarray(A.todense()), f, g,
@@ -186,38 +186,6 @@ def test_random_sdp_min_eig(seed):
     assert out["x"][0] == pytest.approx(expect, rel=1e-3, abs=1e-3), (
         f"seed {seed}: t={out['x'][0]:.6f} vs -lambda_min={expect:.6f}"
     )
-
-
-@pytest.mark.parametrize("seed", range(5))
-def test_fused_random_objectives_match_xla(seed):
-    """Fused kernel vs XLA loop on random mixed objectives (interpret mode):
-    identical iteration counts and f32-eps results."""
-    import jax.numpy as jnp
-    from pogs_tpu.solver.graph import GraphFormSolver
-    from pogs_tpu.types import SolverSettings
-
-    rng = np.random.default_rng(500 + seed)
-    m = int(rng.integers(20, 60))
-    n = int(rng.integers(10, 40))
-    A = rng.standard_normal((m, n)).astype(np.float32)
-    b = rng.standard_normal(m)
-    h_f = rng.choice([int(t) for t in F_POOL], m).astype(np.int32)
-    h_g = rng.choice([int(t) for t in G_POOL], n).astype(np.int32)
-    f = FunctionVector(h_f, b=b, c=rng.uniform(0.3, 2.0, m),
-                       dtype=jnp.float32)
-    g = FunctionVector(h_g, b=rng.uniform(-0.5, 0.5, n),
-                       c=rng.uniform(0.3, 2.0, n), e=0.1, dtype=jnp.float32)
-    st = SolverSettings(max_iter=800)
-
-    res = {}
-    for uf in (True, False):
-        r = GraphFormSolver(A, dtype=jnp.float32,
-                            settings=st.replace(use_fused=uf)).solve(f, g)
-        res[uf] = r
-    assert int(res[True].final_iter) == int(res[False].final_iter), seed
-    assert int(res[True].status) == int(res[False].status), seed
-    np.testing.assert_allclose(np.asarray(res[True].x),
-                               np.asarray(res[False].x), atol=1e-4)
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -271,7 +239,7 @@ def test_random_batched_matches_individual(seed):
     cs = rng.uniform(0.1, 1.0, K).astype(np.float32)
     f = FunctionVector(Function.SQUARE, m, dtype=jnp.float32)
     g = FunctionVector(Function.ABS, n, dtype=jnp.float32)
-    st = SolverSettings(abs_tol=1e-5, rel_tol=1e-5, use_fused=False)
+    st = SolverSettings(abs_tol=1e-5, rel_tol=1e-5)
 
     out = batched_graph_solve(
         A, f, g,

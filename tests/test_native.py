@@ -1,7 +1,7 @@
 """Tests for the native host runtime (C ABI + ctypes bindings).
 
 Builds the library in-tree if needed (skipped when no toolchain), then
-cross-checks the native solver against the TPU/JAX solver — the two
+cross-checks the native solver against the JAX solver — the two
 implementations of the same algorithm act as numerics oracles for each
 other.  Mirrors the reference's C-interface tests
 (reference: tests/test_c_interface.cpp:16-117, enum stability :149-162).
@@ -426,7 +426,7 @@ def test_route_native_decision_logic(monkeypatch):
     st = SolverSettings()
     A_small = np.zeros((60, 30))
     A_big = np.zeros((1000, 1000))
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     assert gmod._route_native(A_small, st, "auto", None, 0)
     assert not gmod._route_native(A_big, st, "auto", None, 0)       # too big
     assert not gmod._route_native(A_small, st, "auto", object(), 0)  # reuse

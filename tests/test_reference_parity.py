@@ -3,7 +3,7 @@
 VERDICT round-1 item 2: every cross-check so far was against this repo's
 own native twin or analytic oracles; this tier builds the upstream
 reference out-of-source (benchmarks/reference_oracle.py) and fuzzes value
-agreement between the TPU solver and the reference C ABI:
+agreement between the JAX solver and the reference C ABI:
 
   * dense graph form  (PogsD          vs GraphFormSolver)  — 4 families
   * sparse graph form (PogsSparseD    vs the BCOO/CGLS path)
@@ -17,7 +17,7 @@ band.  Both run at abs 1e-4 / rel 1e-4 (the benchmark defaults), which
 certifies ~3 digits; we assert rel 5e-3.  Where an analytic optimum exists
 (complementary-slackness LPs) both solvers are additionally checked
 against it.  ≥32 fuzz seeds total, with FIXED shapes per family so the
-jitted TPU solver compiles once per (shape, h-pattern) key.
+jitted JAX solver compiles once per (shape, h-pattern) key.
 
 Skipped automatically when the reference source tree / toolchain is not
 present (e.g. end-user installs).
@@ -49,11 +49,11 @@ def _agree(a: float, b: float, rel: float = 5e-3, abs_: float = 2e-3):
 
 def _run_graph(A, f, g):
     r_ref = ref.ref_solve_graph(A, f, g, **TOL)
-    r_tpu = solve_graph_form(A, f, g, dtype=np.float64, gap_stop=False, **TOL)
+    r_jax = solve_graph_form(A, f, g, dtype=np.float64, gap_stop=False, **TOL)
     assert r_ref["status"] == 0, f"reference failed: {r_ref['status']}"
-    assert r_tpu["status"] == 0, f"tpu solver failed: {r_tpu['status']}"
-    _agree(r_ref["optval"], r_tpu["optval"])
-    return r_ref, r_tpu
+    assert r_jax["status"] == 0, f"JAX solver failed: {r_jax['status']}"
+    _agree(r_ref["optval"], r_jax["optval"])
+    return r_ref, r_jax
 
 
 # ---------------------------------------------------------------- graph form
@@ -172,15 +172,15 @@ def test_parity_cone_lp_hsde(seed):
     A, b, c, opt = _lp_known_optimum(rng, m, n)
     Ky = [ConeConstraint(Cone.NON_NEG, np.arange(m))]
     r_ref = ref.ref_solve_cone(A, b, c, Kx=[], Ky=Ky, **REF_CONE_TOL)
-    r_tpu = solve_cone(A, b, c, Kx=(), Ky=Ky, dtype=np.float64,
+    r_jax = solve_cone(A, b, c, Kx=(), Ky=Ky, dtype=np.float64,
                        polish=False, **REF_CONE_TOL)
     assert r_ref["status"] == 0
-    assert r_tpu["status"] == 0
+    assert r_jax["status"] == 0
     _agree(r_ref["optval"], opt, rel=1e-2, abs_=1e-2)
-    _agree(r_tpu["optval"], opt, rel=1e-2, abs_=1e-2)
-    _agree(r_ref["optval"], r_tpu["optval"])
-    assert abs(r_ref["iterations"] - r_tpu["iterations"]) <= \
-        0.2 * max(r_ref["iterations"], r_tpu["iterations"])
+    _agree(r_jax["optval"], opt, rel=1e-2, abs_=1e-2)
+    _agree(r_ref["optval"], r_jax["optval"])
+    assert abs(r_ref["iterations"] - r_jax["iterations"]) <= \
+        0.2 * max(r_ref["iterations"], r_jax["iterations"])
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -192,7 +192,7 @@ def test_parity_cone_lp_kx_path(seed):
     Parity-in-failure-mode: on these LPs BOTH implementations usually
     exhaust max_iter under the exact-tolerance stopping rule while the
     iterate value is already within ~0.5% of optimal (the reference fails
-    3 of 4 seeds here exactly like the TPU solver).  So the oracle is
+    3 of 4 seeds here exactly like the JAX solver).  So the oracle is
     HiGHS: both returned values must be within 1% of the true optimum,
     and the two solvers must agree with each other."""
     linprog = pytest.importorskip("scipy.optimize").linprog
@@ -206,11 +206,11 @@ def test_parity_cone_lp_kx_path(seed):
     Kx = [ConeConstraint(Cone.NON_NEG, np.arange(n))]
     Ky = [ConeConstraint(Cone.ZERO, np.arange(m))]
     r_ref = ref.ref_solve_cone(A, b, c, Kx=Kx, Ky=Ky, **REF_CONE_TOL)
-    r_tpu = solve_cone(A, b, c, Kx=Kx, Ky=Ky, dtype=np.float64,
+    r_jax = solve_cone(A, b, c, Kx=Kx, Ky=Ky, dtype=np.float64,
                        abs_tol=1e-4, rel_tol=1e-3, max_iter=20000)
     _agree(r_ref["optval"], opt, rel=1e-2, abs_=1e-2)
-    _agree(r_tpu["optval"], opt, rel=1e-2, abs_=1e-2)
-    _agree(r_ref["optval"], r_tpu["optval"], rel=1e-2, abs_=1e-2)
+    _agree(r_jax["optval"], opt, rel=1e-2, abs_=1e-2)
+    _agree(r_ref["optval"], r_jax["optval"], rel=1e-2, abs_=1e-2)
 
 
 @pytest.mark.parametrize("direct", [False, True])
@@ -223,7 +223,7 @@ def test_parity_qp(direct, seed):
     ``PogsConeDirectQD`` with empty Kx route to HSDE, which its own code
     declares broken for QP ("the optimal solution is not a fixed point of
     the HSDE iteration ... users should use OSQP, SCS, or CLARABEL
-    instead", reference ``src/cpu/pogs.cpp:1510-1514``).  The TPU solver's
+    instead", reference ``src/cpu/pogs.cpp:1510-1514``).  The JAX solver's
     QP-extended embedding DOES solve these problems — we assert our value
     against the analytic optimum, and compare with the reference only if
     upstream ever starts converging."""
@@ -244,12 +244,12 @@ def test_parity_qp(direct, seed):
     Ky = [ConeConstraint(Cone.NON_NEG, np.arange(m))]
     r_ref = ref.ref_solve_cone(A, b, c, Kx=[], Ky=Ky, P=P, direct=direct,
                                **REF_CONE_TOL)
-    r_tpu = solve_cone(A, b, c, Kx=(), Ky=Ky, P=P, dtype=np.float64,
+    r_jax = solve_cone(A, b, c, Kx=(), Ky=Ky, P=P, dtype=np.float64,
                        abs_tol=1e-4, rel_tol=1e-4, max_iter=20000)
-    assert r_tpu["status"] == 0
-    _agree(r_tpu["optval"], opt, rel=1e-2, abs_=1e-2)
+    assert r_jax["status"] == 0
+    _agree(r_jax["optval"], opt, rel=1e-2, abs_=1e-2)
     if r_ref["status"] == 0:  # upstream QP-HSDE fixed? then require parity
-        _agree(r_ref["optval"], r_tpu["optval"], rel=1e-2, abs_=1e-2)
+        _agree(r_ref["optval"], r_jax["optval"], rel=1e-2, abs_=1e-2)
 
 
 def test_elastic_net_compat_pin():
@@ -275,10 +275,10 @@ def test_elastic_net_compat_pin():
     g_ref_encoding = FunctionVector(Function.ABS, n, c=lam1, e=lam2 / 2,
                                     dtype=np.float64)
     r_ref = ref.ref_solve_graph(A, f, g_ref_encoding, **TOL)
-    r_tpu_same = solve_graph_form(A, f, g_ref_encoding, dtype=np.float64,
+    r_jax_same = solve_graph_form(A, f, g_ref_encoding, dtype=np.float64,
                                   gap_stop=False, **TOL)
-    assert r_ref["status"] == 0 and r_tpu_same["status"] == 0
-    _agree(r_ref["optval"], r_tpu_same["optval"])
+    assert r_ref["status"] == 0 and r_jax_same["status"] == 0
+    _agree(r_ref["optval"], r_jax_same["optval"])
 
     # (b) builder behaviors.
     def documented_obj(x):
@@ -314,13 +314,13 @@ def test_parity_socp_ball(seed):
     opt = float(c @ x0 - r * np.linalg.norm(c))
     Ky = [ConeConstraint(Cone.SOC, np.arange(n + 1))]
     r_ref = ref.ref_solve_cone(A, b, c, Kx=[], Ky=Ky, **REF_CONE_TOL)
-    r_tpu = solve_cone(A, b, c, Kx=(), Ky=Ky, dtype=np.float64,
+    r_jax = solve_cone(A, b, c, Kx=(), Ky=Ky, dtype=np.float64,
                        **REF_CONE_TOL)
     assert r_ref["status"] == 0
-    assert r_tpu["status"] == 0
+    assert r_jax["status"] == 0
     _agree(r_ref["optval"], opt, rel=1e-2, abs_=1e-2)
-    _agree(r_tpu["optval"], opt, rel=1e-2, abs_=1e-2)
-    _agree(r_ref["optval"], r_tpu["optval"], rel=1e-2, abs_=1e-2)
+    _agree(r_jax["optval"], opt, rel=1e-2, abs_=1e-2)
+    _agree(r_ref["optval"], r_jax["optval"], rel=1e-2, abs_=1e-2)
 
 
 def test_parity_exp_cone():
@@ -332,12 +332,12 @@ def test_parity_exp_cone():
     c = np.array([-1.0])
     Ky = [ConeConstraint(Cone.EXP_PRIMAL, [0, 1, 2])]
     r_ref = ref.ref_solve_cone(A, b, c, Kx=[], Ky=Ky, **REF_CONE_TOL)
-    r_tpu = solve_cone(A, b, c, Kx=(), Ky=Ky, dtype=np.float64,
+    r_jax = solve_cone(A, b, c, Kx=(), Ky=Ky, dtype=np.float64,
                        **REF_CONE_TOL)
-    assert r_tpu["status"] == 0
-    _agree(r_tpu["optval"], -1.0, rel=1e-2, abs_=1e-2)
+    assert r_jax["status"] == 0
+    _agree(r_jax["optval"], -1.0, rel=1e-2, abs_=1e-2)
     if r_ref["status"] == 0:
-        _agree(r_ref["optval"], r_tpu["optval"], rel=1e-2, abs_=1e-2)
+        _agree(r_ref["optval"], r_jax["optval"], rel=1e-2, abs_=1e-2)
 
 
 @pytest.mark.parametrize("seed", range(3))
@@ -371,16 +371,16 @@ def test_parity_infeasible_certificate():
     c = np.array([1.0])
     Ky = [ConeConstraint(Cone.NON_NEG, [0, 1])]
     r_ref = ref.ref_solve_cone(A, b, c, Kx=[], Ky=Ky, **REF_CONE_TOL)
-    r_tpu = solve_cone(A, b, c, Kx=(), Ky=Ky, dtype=np.float64,
+    r_jax = solve_cone(A, b, c, Kx=(), Ky=Ky, dtype=np.float64,
                        **REF_CONE_TOL)
-    assert r_tpu["status"] == 1, r_tpu["status_name"]
+    assert r_jax["status"] == 1, r_jax["status_name"]
     assert r_ref["status"] == 1
 
 
 def test_parity_unbounded_certificate():
     """Unboundedness detection: min -x s.t. x ≥ 0.
 
-    The TPU solver must certify UNBOUNDED (status 2).  Upstream behavior
+    The JAX solver must certify UNBOUNDED (status 2).  Upstream behavior
     pinned: the reference's HSDE misses this trivial certificate and
     exhausts max_iter (its τ→0 test at pogs.cpp:1826 checks ‖Ax̂‖ = 0,
     which only holds when every row is a Zero cone — the recession-cone
@@ -391,7 +391,7 @@ def test_parity_unbounded_certificate():
     c = np.array([-1.0])
     Ky = [ConeConstraint(Cone.NON_NEG, [0])]
     r_ref = ref.ref_solve_cone(A, b, c, Kx=[], Ky=Ky, **REF_CONE_TOL)
-    r_tpu = solve_cone(A, b, c, Kx=(), Ky=Ky, dtype=np.float64,
+    r_jax = solve_cone(A, b, c, Kx=(), Ky=Ky, dtype=np.float64,
                        **REF_CONE_TOL)
-    assert r_tpu["status"] == 2, r_tpu["status_name"]
+    assert r_jax["status"] == 2, r_jax["status_name"]
     assert r_ref["status"] != 0  # upstream: MAX_ITER today, UNBOUNDED if fixed

@@ -67,7 +67,7 @@ def test_row_sharded_solve_matches_single_device(mesh8):
     A, b, lam = _problem(m, n, seed=1)
     f = FunctionVector(Function.SQUARE, m, b=b, dtype=jnp.float32)
     g = FunctionVector(Function.ABS, n, c=lam, dtype=jnp.float32)
-    st = SolverSettings(abs_tol=1e-5, rel_tol=1e-5, use_fused=False)
+    st = SolverSettings(abs_tol=1e-5, rel_tol=1e-5)
 
     res_ref = GraphFormSolver(A, dtype=jnp.float32, settings=st).solve(f, g)
 
@@ -295,7 +295,7 @@ def test_wide_A_column_sharded_solve(mesh8):
     A, b, lam = _problem(m, n, seed=11)
     f = FunctionVector(Function.SQUARE, m, b=b, dtype=jnp.float32)
     g = FunctionVector(Function.ABS, n, c=lam, dtype=jnp.float32)
-    st = SolverSettings(abs_tol=1e-5, rel_tol=1e-5, use_fused=False)
+    st = SolverSettings(abs_tol=1e-5, rel_tol=1e-5)
 
     res_ref = GraphFormSolver(A, dtype=jnp.float32, settings=st).solve(f, g)
     A_sh = shard_matrix_cols(jnp.asarray(A), mesh8)
@@ -375,7 +375,7 @@ def test_adversarial_sharding_still_correct(mesh8):
     A, b, lam = _problem(m, n, seed=13)
     f = FunctionVector(Function.SQUARE, m, b=b, dtype=jnp.float32)
     g = FunctionVector(Function.ABS, n, c=lam, dtype=jnp.float32)
-    st = SolverSettings(abs_tol=1e-5, rel_tol=1e-5, use_fused=False)
+    st = SolverSettings(abs_tol=1e-5, rel_tol=1e-5)
 
     res_ref = GraphFormSolver(A, dtype=jnp.float32, settings=st).solve(f, g)
     A_bad = shard_matrix_cols(jnp.asarray(A), mesh8)  # tall A, column plan
@@ -411,11 +411,10 @@ def test_init_distributed_surfaces_failure(monkeypatch):
 
 def test_loop_body_collective_budget(mesh8):
     """Round-5 regression: the ADMM body once carried 12 scalar
-    all-reduces per iteration (one per m-part norm/dot — each pure ICI
-    latency on a real slice).  After stacking the same-point reductions
-    the steady-state budget is 2 vector + 1 small all-reduce OP; the
-    exact-residual branch may add a couple more.  The ICI scaling model
-    (benchmarks/scaling_bench.py) prices exactly these counts."""
+    all-reduces per iteration (one per m-part norm/dot — each pure
+    interconnect latency on real devices).  After stacking the same-point
+    reductions the steady-state budget is 2 vector + 1 small all-reduce
+    OP; the exact-residual branch may add a couple more."""
     from benchmarks.scaling_bench import measure_loop_collective_shapes
 
     counts = measure_loop_collective_shapes()
@@ -436,12 +435,12 @@ def test_loop_body_has_no_collective_permutes(mesh8):
     A, b, lam = _problem(m, n, seed=21)
     f = FunctionVector(Function.SQUARE, m, b=b, dtype=jnp.float32)
     g = FunctionVector(Function.ABS, n, c=lam, dtype=jnp.float32)
-    st = SolverSettings(abs_tol=1e-4, rel_tol=1e-3, use_fused=False)
+    st = SolverSettings(abs_tol=1e-4, rel_tol=1e-3)
     A_sh = shard_matrix(jnp.asarray(A), mesh8)
     solver = GraphFormSolver(A_sh, dtype=jnp.float32, settings=st)
     solver.init()
     fn = _get_solve_fn((m, n), solver.dtype, f.h, g.h, st, solver.projector,
-                       solver.direct_method, False, False, False, fused=False)
+                       solver.direct_method, False, False, False)
     f.to_device()
     g.to_device()
     txt = fn.lower(solver._init_state, tuple(f.params), tuple(g.params),
@@ -649,8 +648,7 @@ def test_sharded_sparse_cone_lp_matches_single(mesh8):
     # dual residual a hair above a 1e-5 floor-level tolerance.
     st = SolverSettings(abs_tol=1e-6, rel_tol=1e-6, max_iter=1500)
 
-    r_single = ConeSolver(A, Ky=Ky, settings=st, dtype=np.float64,
-                          sparse_policy="keep").solve(b, c, settings=st)
+    r_single = ConeSolver(A, Ky=Ky, settings=st, dtype=np.float64).solve(b, c, settings=st)
 
     op, _ = shard_sparse(A, mesh8, dtype=np.float64)
     b_pad, Ky_pad = pad_cone_rows(b, Ky, op.shape[0])

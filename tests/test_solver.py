@@ -176,7 +176,7 @@ def test_warm_start_lambda_path(rng):
 
 
 def test_float32_reaches_default_tolerance(rng):
-    """f32 (the TPU-native dtype) must attain the default 1e-4 tolerances."""
+    """f32 (the accelerator's working dtype) must attain the default 1e-4 tolerances."""
     m, n = 100, 60
     A = rng.normal(size=(m, n)).astype(np.float32)
     b = rng.normal(size=m).astype(np.float32)
@@ -211,7 +211,7 @@ def test_max_iter_status(rng):
 
 def test_f32_tolerance_attainment_family():
     """All five README problem families reach SUCCESS at default tolerances
-    in float32 (the TPU-native iterate precision)."""
+    in float32 (the accelerator's working iterate precision)."""
     import numpy as np
     import jax.numpy as jnp
     from pogs_tpu import (

@@ -110,10 +110,8 @@ def test_builders_keep_sparse(rng):
 
 
 def test_cone_solver_sparse_policy():
-    """ConeSolver mirrors GraphFormSolver's auto-densify policy: 'keep'
-    preserves BCOO; 'densify' forces dense (and the direct projector);
-    'auto' keeps sparse on the CPU backend (the TPU branch is
-    size-gated)."""
+    """ConeSolver shares GraphFormSolver's policy: 'auto' keeps BCOO;
+    'densify' forces dense (and the direct projector)."""
     import scipy.sparse as sp
 
     from pogs_tpu.solver.cone import ConeSolver
@@ -121,14 +119,38 @@ def test_cone_solver_sparse_policy():
 
     A = sp.random(30, 20, density=0.2, random_state=0, format="csr")
     Ky = [ConeConstraint(Cone.NON_NEG, range(30))]
-    s_keep = ConeSolver(A, Ky=Ky, sparse_policy="keep")
-    assert s_keep.A.is_sparse
     s_dense = ConeSolver(A, Ky=Ky, sparse_policy="densify")
     assert not s_dense.A.is_sparse
-    s_auto = ConeSolver(A, Ky=Ky)  # cpu backend: stays sparse
+    s_auto = ConeSolver(A, Ky=Ky)
     assert s_auto.A.is_sparse
     with pytest.raises(ValueError, match="sparse_policy"):
         ConeSolver(A, Ky=Ky, sparse_policy="bogus")
+    with pytest.raises(ValueError, match="sparse_policy"):
+        ConeSolver(A, Ky=Ky, sparse_policy="keep")
+
+
+@pytest.mark.parametrize("backend", ["cpu", "gpu"])
+@pytest.mark.parametrize("kind", ["scipy", "bcoo"])
+def test_auto_sparse_policy_keeps_bcoo_on_every_backend(monkeypatch,
+                                                        backend, kind):
+    """'auto' never densifies, whatever the platform: both solvers keep a
+    scipy or BCOO input as BCOO with the CGLS projector."""
+    import jax
+    import scipy.sparse as sp
+    from jax.experimental import sparse as jsparse
+
+    from pogs_tpu.solver.cone import ConeSolver
+    from pogs_tpu.solver.graph import GraphFormSolver
+    from pogs_tpu.types import Cone, ConeConstraint
+
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    A = sp.random(40, 25, density=0.5, random_state=1, format="csr")
+    if kind == "bcoo":
+        A = jsparse.BCOO.from_scipy_sparse(A)
+    g = GraphFormSolver(A)
+    assert g.A.is_sparse and g.projector == "cgls"
+    c = ConeSolver(A, Ky=[ConeConstraint(Cone.NON_NEG, range(40))])
+    assert c.A.is_sparse
 
 
 def test_f32_cgls_noise_floor_regression(rng):
@@ -152,8 +174,7 @@ def test_f32_cgls_noise_floor_regression(rng):
                        dtype=jnp.float32)
     g = FunctionVector(Function.ABS, n, c=lam, dtype=jnp.float32)
 
-    out = GraphFormSolver(A, dtype=jnp.float32,
-                          sparse_policy="keep").solve(f, g, settings=st)
+    out = GraphFormSolver(A, dtype=jnp.float32).solve(f, g, settings=st)
     assert out.status == Status.SUCCESS
     assert out.final_iter < 1000
 
@@ -188,8 +209,7 @@ def test_sparse_lp_tail_polish_reaches_tight_tolerance():
     c = rng.standard_normal(300)
     Ky = [ConeConstraint(Cone.NON_NEG, range(m))]
     st = SolverSettings(abs_tol=1e-6, rel_tol=1e-6, max_iter=4000)
-    r_sp = ConeSolver(A, Ky=Ky, settings=st, dtype=np.float64,
-                      sparse_policy="keep").solve(b, c, settings=st)
+    r_sp = ConeSolver(A, Ky=Ky, settings=st, dtype=np.float64).solve(b, c, settings=st)
     assert r_sp.status == Status.SUCCESS
     assert int(r_sp.final_iter) <= 3000
     r_d = ConeSolver(A.toarray(), Ky=Ky, settings=st,

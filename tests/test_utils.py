@@ -100,12 +100,12 @@ def test_checkpoint_sparse_solver(tmp_path):
     b = np.random.default_rng(0).standard_normal(30)
     f = FunctionVector(Function.SQUARE, 30, b=b)
     g = FunctionVector(Function.ABS, 15, c=0.1)
-    s1 = GraphFormSolver(A, sparse_policy="keep")
+    s1 = GraphFormSolver(A)
     r1 = s1.solve(f, g)
     assert r1.status == Status.SUCCESS
     path = tmp_path / "sparse_ckpt.npz"
     s1.save_state(path)
-    s2 = GraphFormSolver(A, sparse_policy="keep").load_state(path)
+    s2 = GraphFormSolver(A).load_state(path)
     r2 = s2.solve(f, g)
     assert r2.status == Status.SUCCESS
     assert int(r2.final_iter) <= int(r1.final_iter)
@@ -121,15 +121,36 @@ def test_profiler_trace_writes(tmp_path):
     assert any(files for _, _, files in os.walk(tmp_path))
 
 
-def test_published_tables_in_sync_with_artifacts():
-    """VERDICT r2 item 7: every published table is generated from
-    benchmarks/results.json; drift fails the suite."""
+def _cache_helper_in_child(env_extra):
+    """Run use_compile_cache() in a fresh interpreter (the JAX config is
+    process-global) and return (returned dir, JAX's configured dir)."""
+    import os
     import subprocess
     import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    env.update(env_extra, JAX_PLATFORMS="cpu", PYTHONPATH=root)
+    code = ("import jax; from pogs_tpu.utils.compile_cache import "
+            "use_compile_cache as u; d = u(); "
+            "print(d); print(jax.config.jax_compilation_cache_dir)")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.split()
+    return out[-2], out[-1]
+
+
+def test_compile_cache_defaults_to_checkout():
     import os
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    proc = subprocess.run(
-        [sys.executable, os.path.join(root, "benchmarks", "render_results.py"),
-         "--check"], capture_output=True, text=True)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
+    used, configured = _cache_helper_in_child({})
+    assert used == configured == os.path.join(root, ".jax_cache")
+
+
+def test_compile_cache_honours_environment(tmp_path):
+    want = str(tmp_path / "cache")
+    used, configured = _cache_helper_in_child(
+        {"JAX_COMPILATION_CACHE_DIR": want})
+    assert used == configured == want
